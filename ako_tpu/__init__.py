@@ -1,13 +1,13 @@
-"""ako_tpu — a TPU-native still-image codec framework.
+"""ako_tpu — an accelerator-native still-image codec framework in JAX.
 
 A from-scratch rebuild of the capabilities of the Ako image codec
 (reference: baAlex/Ako, an integer lifting-DWT codec in C11) designed
-TPU-first: the per-tile compute pipeline (color transform, dyadic
+device-first: the per-tile compute pipeline (color transform, dyadic
 integer wavelet lifting with fused quantization/noise-gate) runs as
-XLA/Pallas programs over batched planar int16 tile tensors, while the
-bitstream layer (Elias-gamma + RLE entropy coding, container framing)
-runs in native C on the host with a vectorized on-device encoder
-formulation alongside.
+XLA programs over batched planar int16 tile tensors, and the
+bitstream layer (Elias-gamma + RLE entropy coding) runs on the device
+as a scan-based coder, with the native C coder on the host as the
+exact fallback and the CPU path; container framing runs on the host.
 
 Bit-exactness contract: for every setting combination the produced
 `.ako` blob is byte-identical to the reference encoder's output and

@@ -5,7 +5,7 @@ call sites library/encode.c:132-184, library/decode.c:145-207): the
 codec fires START/END pairs per tile for each pipeline stage through a
 user callback `events(tile_no, total_tiles, event, user_data)`.
 
-In the TPU pipeline FORMAT covers host-side tile staging and
+In the device pipeline FORMAT covers host-side tile staging and
 device transfer, WAVELET covers the fused device program (color
 transform + lifting — one XLA computation, timed together), and
 COMPRESSION covers the entropy stage; the same enum values are kept so

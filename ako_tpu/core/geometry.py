@@ -3,7 +3,7 @@
 Everything here is derived from image/tile dimensions alone; the
 container carries no per-level metadata (parity: library/misc.c:98-226
 and the stream walk contract of library/misc.c:229-288). These
-functions produce the *static* shape schedules that the TPU pipeline
+functions produce the *static* shape schedules that the device pipeline
 compiles against: per distinct tile shape there is exactly one lift
 schedule, so exactly one compiled XLA program.
 """

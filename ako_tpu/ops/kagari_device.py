@@ -1,7 +1,7 @@
 """Device-side Kagari entropy encoder: the scan-based formulation.
 
 The reference coder is a sequential 64-bit bit-accumulator loop
-(reference library/kagari.c:59-297). On TPU it becomes data-parallel
+(reference library/kagari.c:59-297). On the device it becomes data-parallel
 passes over the whole coefficient stream:
 
   1. zigzag + RLE tokenization — run structure recovered with a
@@ -15,8 +15,10 @@ passes over the whole coefficient stream:
      bits so windows never carry); per-word sums are recovered from a
      cumulative sum sampled at word boundaries via searchsorted —
      token word-indices are monotonically sorted, so segment sums are
-     just differences of the cumsum (XLA-friendly: no scatter, whose
-     TPU lowering compiles pathologically slowly).
+     just differences of the cumsum (no scatter: on the accelerator
+     this was first written for, scatter compiled pathologically
+     slowly; whether a scatter form wins on the GPU is open, ROADMAP
+     A2).
 
 The emitted bytes equal the reference's byte stream exactly: the
 accumulator's flush pattern is plain MSB-first bit concatenation with
@@ -71,7 +73,7 @@ _CS_MXU_MIN = 4096
 
 def _tri_cumsum_rows(rows_bf16):
     """(R, C) bf16 -> (R, C) fp32 inclusive in-chunk cumsum via one
-    upper-triangular MXU matmul. Exact while in-chunk sums stay below
+    upper-triangular bf16 matmul (f32 accumulation). Exact while in-chunk sums stay below
     2^24 (callers bound entries accordingly)."""
     C = rows_bf16.shape[-1]
     tri = jnp.triu(jnp.ones((C, C), jnp.bfloat16))
@@ -80,10 +82,10 @@ def _tri_cumsum_rows(rows_bf16):
 
 def _cumsum_mxu_u32(x):
     """Inclusive cumsum mod 2^32 of a uint32 vector, via chunked
-    triangular MXU matmuls: one HBM pass + a tiny chunk-total cumsum,
-    instead of the log(n) full-array shift passes XLA emits for
-    jnp.cumsum (26.6 ms/img measured on the 80-tile batch vs ~3 ms for
-    this formulation).
+    triangular bf16 matmuls: one HBM pass + a tiny chunk-total cumsum,
+    instead of the log(n) full-array shift passes XLA emitted for
+    jnp.cumsum on the first target (on the GPU the choice is open,
+    ROADMAP A2).
 
     Exactness: each 8-bit limb's in-chunk sums are <= 255*256 < 2^24
     (exact in fp32), and the limb recombination / chunk-total addition
@@ -107,8 +109,8 @@ def _cumsum_mxu_u32(x):
 
 def _excl_cumsum_mxu_small(x):
     """Exclusive cumsum of an int32 vector with entries in [0, 255]
-    (gamma code lengths are <= 31): single-limb chunked triangular MXU
-    matmul. Exact: in-chunk sums <= 255*256 < 2^24, totals < 2^31."""
+    (gamma code lengths are <= 31): single-limb chunked triangular
+    bf16 matmul. Exact: in-chunk sums <= 255*256 < 2^24, totals < 2^31."""
     m = x.shape[0]
     if m < _CS_MXU_MIN:
         return _exclusive_cumsum(x)
@@ -183,18 +185,16 @@ _RANK_CHUNK = 128
 
 #: dense-inverse rank chunk width; also bounds each chunk's word span
 #: (bit offsets advance <= 31 bits/token, so a chunk of C tokens spans
-#: <= C-1 word indices). Swept on the chip: 128 beat 256 (44 vs 49 ms
-#: per 80-tile image) and 512 (64 ms)
+#: <= C-1 word indices). 128 beat 256 and 512 in a sweep before the
+#: GPU port; not yet re-swept on the GPU
 _DENSE_CHUNK = 128
 
-#: chunk width for the "place" packer (_place_words_u32). Its VPU cost
-#: (the per-chunk local-word compare/select/sum) is LINEAR in this
-#: width while the coarse MXU matmuls stay negligible, and any power of
+#: chunk width for the "place" packer (_place_words_u32). Its vector
+#: cost (the per-chunk local-word compare/select/sum) is LINEAR in this
+#: width while the coarse matmuls stay negligible, and any power of
 #: two is exact (codes <= 31 bits keep every chunk's word span < C even
-#: at 32). Swept on the chip 2026-08-19 (devbench/device_stages.py,
-#: 80-tile north-star batch, fetch floor subtracted): pack 7.9 ms/img
-#: at 32 vs 12.6 at 64 and 18.9 at 128 (the round-3 default) —
-#: artifact devbench/DEVICE_STAGES_r04.json.
+#: at 32). 32 won a sweep of 32/64/128 before the GPU port; re-sweep
+#: on the GPU with devbench/device_stages.py.
 _PLACE_CHUNK = int(os.environ.get("AKO_PACK_CHUNK", "32"))
 
 #: sentinel larger than any reachable word index (streams are < 2^28
@@ -208,8 +208,8 @@ def _rank_dense2(word, n_queries: int):
 
     v1 (_rank_dense) placed chunk-local histograms with a one-hot
     matmul into a (C, Q+C) plane and summed its skew diagonals with a
-    lane-shift fold — measured 40 of the rank's 43 ms/img on chip (lane
-    shifts force full vector relayouts). v2 decomposes each chunk's
+    lane-shift fold — most of the rank's time on the first target
+    (lane shifts forced full vector relayouts there). v2 decomposes each chunk's
     placement offset base_c = C*kc + rot_c and
 
       1. rolls the (C, nc) transposed histogram DOWN its sublane axis
@@ -217,7 +217,7 @@ def _rank_dense2(word, n_queries: int):
          — sublane moves, no lane relayout);
       2. splits wrapped rows (r'' < rot: they belong to coarse block
          kc+1) with a mask, and places both parts with two tiny
-         (C, nc) x (nc, ceil(Q/C)) bf16 MXU matmuls against one-hot
+         (C, nc) x (nc, ceil(Q/C)) bf16 matmuls against one-hot
          coarse-block matrices.
 
     Exactness: histogram entries <= C = 128 are exact in bf16, the
@@ -267,15 +267,15 @@ def _place_words_u32(hi, lo, word, n_words: int):
     """out[q] = Σ hi over tokens with word == q  +  Σ lo over tokens
     with word == q-1 (wrapping uint32) — the word assembly of pack_bits
     as ONE dense placement, with no rank, no big cumsums and no
-    gathers (v1's rank cost 43 ms/img and its cs[upper] gathers 27 of
-    the 87 ms pack on chip).
+    gathers (on the first target, v1's rank and its cs[upper] gathers
+    took most of the pack).
 
     Same chunk/roll/coarse-matmul scheme as _rank_dense2, vectorized
     over the hi channel (shift 0) and the lo channel (shift 1).
     Exactness: tokens sharing a word contribute DISJOINT bit ranges of
     that word (the gamma codes tile the stream), so every per-word sum
     is a bitwise OR: 8-bit limb partial sums stay < 256 (exact bf16
-    inputs, exact fp32 MXU accumulation) and the final limb
+    inputs, exact fp32 accumulation) and the final limb
     recombination in wrapping uint32 is exact — at every chunk width
     (the disjointness is a stream property, not a chunk property)."""
     C = _PLACE_CHUNK
@@ -332,12 +332,12 @@ def _rank_dense(word, n_queries: int):
     token). The queries being a dense arange turns rank into a
     histogram + cumsum; the histogram is assembled from chunk-local
     histograms (each chunk of _DENSE_CHUNK tokens spans < _DENSE_CHUNK
-    word indices) placed at their base word via a one-hot matmul — an
-    MXU-friendly dense contraction instead of the merge sort that
-    dominated the round-1 profile.
+    word indices) placed at their base word via a one-hot matmul — a
+    dense contraction instead of the merge sort that dominated the
+    round-1 profile.
 
     Exactness: local-histogram entries are <= C <= 256, exactly
-    representable in bf16 (8 mantissa bits), and the MXU accumulates in
+    representable in bf16 (8 mantissa bits), and the matmul accumulates in
     fp32 over < 2^18 tokens total, far below 2^24."""
     C = _DENSE_CHUNK
     # the fold below halves the row count each step; C must be a power
@@ -356,7 +356,7 @@ def _rank_dense(word, n_queries: int):
         dtype=jnp.int32,
     )  # (nc, C)
     # place each local histogram at its base: PT[r, q'] = sum over
-    # chunks with base == q' of lh[., r] — a bf16 MXU contraction
+    # chunks with base == q' of lh[., r] — a bf16 contraction
     # against the one-hot base matrix. Padded chunks have base ==
     # _WORD_PAD and never match a query. Transposed layout so the
     # diagonal reduction below works on contiguous rows.
@@ -368,8 +368,8 @@ def _rank_dense(word, n_queries: int):
     # h[q] = sum_r PT[r, q - r]: a skew-diagonal sum, folded in log2(C)
     # steps — at each step the bottom half of the rows is shifted right
     # by the half-width (a static pad+slice, no relayout) and added to
-    # the top half. A flat-reshape skew triggers a pathological lane
-    # relayout on TPU (measured 113 ms vs ~1 ms for this fold).
+    # the top half. A flat-reshape skew triggered a pathological lane
+    # relayout on the first target.
     B = jnp.pad(PT, ((0, 0), (0, C)))  # (C, Q + C)
     width = n_queries + C
     k = C
@@ -387,7 +387,7 @@ def _rank_chunked(word, queries):
     deltas are 0 or 1 (gamma codes are < 32 bits, so the word index
     advances at most one per token).
 
-    A full sort/searchsorted over all tokens is the TPU bottleneck;
+    A full sort/searchsorted over all tokens was the round-1 bottleneck;
     instead tokens are chunked _RANK_CHUNK-wide. Chunk bases (word of the
     chunk's first token) are a tiny sorted table: a chunk's tokens
     never precede its base and never exceed the next base, so
@@ -438,7 +438,7 @@ def pack_bits(vals, nbits, capacity_bytes: int):
     word = (offs >> 5).astype(jnp.int32)
     shift = (offs & 31).astype(jnp.int32)
     # Conceptual 64-bit window [word, word+1): the value's MSB lands at
-    # window bit `shift`. TPUs have no native 64-bit ints, so split the
+    # window bit `shift`. x64 is off (no native 64-bit ints), so split the
     # window into two uint32 halves directly: k1 bits into word, the
     # remaining k2 = nbits - k1 into word+1. Codes are <= 31 bits, so
     # each token touches exactly these two words and never carries —
@@ -473,9 +473,9 @@ def pack_bits(vals, nbits, capacity_bytes: int):
         # the hi/lo running sums (wrapping cumsums are exact at word
         # boundaries because in-word bits are disjoint). One rank
         # serves both channels: #(word+1 <= q) == #(word <= q-1) is
-        # the same rank shifted one query. On chip the rank cost 43
-        # ms/img ("dense"; the round-1 "sort" was ~145) and the two
-        # cs[upper] gathers another 27.
+        # the same rank shifted one query. Before the GPU port the rank
+        # and the two cs[upper] gathers cost several times the "place"
+        # pack.
         if _RANK_IMPL == "dense2":
             upper = _rank_dense2(word, cap_words)
         elif _RANK_IMPL == "dense":
@@ -587,15 +587,15 @@ def kagari_decode_device(words, bit_off, prev0, consec0, run0, n_outputs: int,
     lane's window is sliced out of `words` with ONE gather up front and
     then carried through the scan — a refill takes the window's front
     word and shifts it left, so the hot loop has no gathers at all
-    (the round-2 per-step `words[wptr]` gathers cost ~104 ms/image vs
-    ~15 ms for this formulation). None = whole-stream windows (always
+    (per-step `words[wptr]` gathers were several times slower on the
+    first target). None = whole-stream windows (always
     safe; memory-proportionate only for small streams — tests).
 
     `base` (int32 scalar) offsets every word index: callers batching
     many tiles upload ONE dense concatenated word pool and pass each
     tile's start word here, instead of padding every tile to a common
-    per-tile capacity (which cost ~2.5x the actual compressed bytes
-    over the host link)."""
+    per-tile capacity (which copied ~2.5x the actual compressed bytes
+    to the device)."""
     wcap = words.shape[0]
     if span is None:
         span = wcap

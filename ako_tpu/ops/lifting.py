@@ -38,30 +38,17 @@ def forward_tile(
     wavelet: Wavelet,
     wrap: Wrap,
     qg: Sequence[Tuple[Tuple[int, ...], Tuple[int, ...]]],
-    use_pallas: bool = None,
 ):
     """planes: (..., channels, tile_h, tile_w) int16 -> serialized
-    coefficient stream (..., coeff_count) int16.
-
-    use_pallas: route even-dimension levels through the Pallas VMEM
-    kernels (ops/pallas_lift.py); None reads AKO_TPU_PALLAS."""
+    coefficient stream (..., coeff_count) int16."""
     channels = planes.shape[-3]
     batch = planes.shape[:-3]
-    if use_pallas is None:
-        from ako_tpu.ops.pallas_lift import pallas_enabled
-
-        use_pallas = pallas_enabled()
 
     level_chunks: List[jnp.ndarray] = []
     cur = planes
     for lvl, (qs, gs) in zip(schedule.levels, qg):
         weff = effective_wavelet(wavelet, lvl.target_w, lvl.target_h)
-        if use_pallas and not lvl.fake_last_col and not lvl.fake_last_row:
-            from ako_tpu.ops.pallas_lift import lift2d_pallas
-
-            ll, b, c, d = lift2d_pallas(weff, wrap, cur)
-        else:
-            ll, b, c, d = lift2d(weff, wrap, cur, lvl)
+        ll, b, c, d = lift2d(weff, wrap, cur, lvl)
 
         q = jnp.asarray(qs, dtype=jnp.int32).reshape(channels, 1, 1)
         g = jnp.asarray(gs, dtype=jnp.int32).reshape(channels, 1, 1)
@@ -90,7 +77,6 @@ def inverse_tile(
     wavelet: Wavelet,
     wrap: Wrap,
     channels: int,
-    use_pallas: bool = None,
 ):
     """Serialized stream (..., coeff_count) int16 -> planes
     (..., channels, tile_h, tile_w) int16.
@@ -99,10 +85,6 @@ def inverse_tile(
     quantization is the int16-wrapping multiply of
     library/lifting.c:30-40, skipped for q <= 1."""
     batch = coeffs.shape[:-1]
-    if use_pallas is None:
-        from ako_tpu.ops.pallas_lift import pallas_enabled
-
-        use_pallas = pallas_enabled()
 
     lp_n = channels * schedule.lp_h * schedule.lp_w
     cur = coeffs[..., :lp_n].reshape(batch + (channels, schedule.lp_h, schedule.lp_w))
@@ -122,11 +104,6 @@ def inverse_tile(
         d = dequant[..., 2, :, :]
 
         weff = effective_wavelet(wavelet, hw, hh)
-        if use_pallas and not lvl.fake_last_col and not lvl.fake_last_row:
-            from ako_tpu.ops.pallas_lift import unlift2d_pallas
-
-            cur = unlift2d_pallas(weff, wrap, cur, b, c, d)
-        else:
-            cur = unlift2d(weff, wrap, cur, b, c, d, lvl)
+        cur = unlift2d(weff, wrap, cur, b, c, d, lvl)
 
     return cur

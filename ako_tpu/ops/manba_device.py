@@ -1,6 +1,6 @@
 """Device-side parallel Manbavaran (rANS) decoder.
 
-The TPU mirror of akort.c:akort_manba_decode: every DECODE_BLOCK
+The device mirror of akort.c:akort_manba_decode: every DECODE_BLOCK
 outputs decode independently from a host sync record
 (runtime.kagari.manba_sync -> akort_manba_sync), so the sequential
 rANS state chain parallelizes over B lanes with a block-step scan —

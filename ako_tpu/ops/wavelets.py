@@ -32,7 +32,7 @@ from ako_tpu.ops.intmath import div2, div4, div16, div32, i16, i32
 # Every boundary-substituting shift optionally takes `axis_name`: when
 # set (inside shard_map, the lifted axis sharded over that mesh axis)
 # the edge values come from the neighboring shard via a cyclic
-# lax.ppermute — the TPU-native halo exchange over ICI — and the wrap
+# lax.ppermute — the halo exchange between devices — and the wrap
 # substitution applies only on the true global edge (first/last shard).
 # A cyclic permute hands shard 0 the *last* shard's edge, which is
 # exactly the REPEAT wrap value, so that mode needs no correction.
@@ -197,9 +197,7 @@ def _interleave(ev, od, axis):
 def lift_core(wavelet: Wavelet, wrap: Wrap, ev, od, axis: int,
               axis_name: str | None = None):
     """Forward lift formulas on pre-split even/odd streams (int32),
-    shifts along `axis`; returns (lp, hp) int16. Shared by the strided
-    XLA path (lift1d) and the Pallas kernels, whose even/odd split is a
-    sublane reshape instead of a strided slice (ops/pallas_lift.py)."""
+    shifts along `axis`; returns (lp, hp) int16."""
     if wavelet == Wavelet.HAAR:
         return i16(ev), i16(od - ev)
 

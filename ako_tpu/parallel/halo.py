@@ -33,8 +33,8 @@ The residual small levels (a few KB) run replicated — the classic
 coarse-level gather of parallel wavelet transforms. `plan_levels`
 reports statically how many levels shard for a given schedule/mesh;
 tests assert the count so a planner regression can never silently
-replicate everything (tests/test_parallel.py). This is the TPU
-equivalent the reference has no counterpart for (SURVEY.md §2.4.2;
+replicate everything (tests/test_parallel.py). This is the
+multi-device design the reference has no counterpart for (SURVEY.md §2.4.2;
 reference tiles are independent, library/encode.c:115)."""
 
 from __future__ import annotations

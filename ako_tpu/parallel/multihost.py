@@ -1,11 +1,11 @@
 """Multi-host batch pipeline (DCN tier).
 
-The scaling tiers of the TPU design (SURVEY.md §2.4, BASELINE
-configs[4]):
+The scaling tiers of the multi-device design (SURVEY.md §2.4,
+BASELINE configs[4]):
 
-  chip  — tiles of one image batched over the chip's SPMD program
-  host  — tile grid sharded over the host's chips ("tiles" mesh axis,
-          ICI collectives for the bitstream gather)
+  device — tiles of one image batched over the device's SPMD program
+  host   — tile grid sharded over the host's devices ("tiles" mesh
+           axis, collectives for the bitstream gather)
   pod   — *images* sharded over hosts: each host encodes its images
           end-to-end (tiles stay host-local so no bitstream bytes
           cross DCN), only the finished blobs are exchanged
@@ -57,7 +57,7 @@ def process_info() -> Tuple[int, int]:
 
 def global_mesh(axis_names: Sequence[str] = ("hosts", "tiles")):
     """Pod-wide mesh: leading axis over hosts (DCN), trailing axis over
-    each host's local chips (ICI)."""
+    each host's local devices."""
     n_proc = jax.process_count()
     devs = np.asarray(jax.devices()).reshape(n_proc, -1)
     from jax.sharding import Mesh

@@ -1,7 +1,7 @@
-"""Tile-data-parallelism: the independent-tile grid sharded over chips.
+"""Tile-data-parallelism: the independent-tile grid sharded over devices.
 
 Ako tiles are fully independent (own pyramid, own quantization heads,
-own entropy block — SURVEY.md §2.4), so the grid's natural TPU mapping
+own entropy block — SURVEY.md §2.4), so the grid's natural device mapping
 is a leading batch dimension sharded over a 1-D "tiles" mesh axis.
 The per-tile compute (format + lift + fused quantization, and the
 inverse) contains no cross-tile ops, so GSPMD partitions it with zero
@@ -154,9 +154,10 @@ def _sharded_tile_encoder_fused(
     mesh run format+lift+Kagari locally. Only the (tiny) per-tile sizes
     are replicated eagerly; the compressed planes stay sharded, and the
     caller gathers them through `_bucket_gather` at a width bounded by
-    the actual compressed sizes — the TPU-native form of the
+    the actual compressed sizes — the multi-device form of the
     reference's sequential blob append (library/encode.c:170-182;
-    SURVEY.md §2.4.3) without moving budget-width planes over ICI."""
+    SURVEY.md §2.4.3) without moving budget-width planes between
+    devices."""
     from ako_tpu.encode import _tile_encoder_fused_raw
 
     fn, capacity, budget = _tile_encoder_fused_raw(
@@ -183,7 +184,7 @@ def _bucket_width(m: int, budget: int) -> int:
 
 @functools.lru_cache(maxsize=512)
 def _bucket_gather(mesh: Mesh, axis_name: str, width: int):
-    """Jitted ICI all-gather of the first `width` byte columns of a
+    """Jitted all-gather of the first `width` byte columns of a
     tile-sharded compressed plane."""
     batch_spec = NamedSharding(mesh, P(axis_name))
     replicated = NamedSharding(mesh, P())
@@ -201,7 +202,7 @@ def encode_image_sharded(
     axis_name: str = "tiles",
 ) -> bytes:
     """Full multi-chip encode: tile grid sharded over the mesh, blocks
-    gathered via ICI, container assembled on host. Byte-identical to
+    all-gathered, container assembled on host. Byte-identical to
     the single-chip encode()."""
     from ako_tpu.core import container
     from ako_tpu.encode import _CAPACITY_MARGIN, checked_settings
@@ -395,8 +396,9 @@ def decode_image_sharded(
     _check_decode_budget(image_w, image_h, channels)
     cursor = container.HEAD_SIZE
     grid = geometry.tile_grid(image_w, image_h, s.tiles_dimension)
-    if device_entropy is None:
-        device_entropy = jax.default_backend() != "cpu"
+    from ako_tpu.runtime.device import resolve_device_entropy
+
+    device_entropy = resolve_device_entropy(device_entropy)
 
     image = np.empty((image_h, image_w, channels), dtype=np.uint8)
 

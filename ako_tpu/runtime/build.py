@@ -1,43 +1,89 @@
 """Build-and-load for the native runtime library.
 
-Compiles ako_tpu/runtime/native/akort.c into _akort.so next to the
-source on first import (cached by source mtime), then exposes a typed
-ctypes handle. No pip/apt dependencies: plain cc + libm.
+Compiles ako_tpu/runtime/native/akort.c on first use into a shared
+library whose file name carries a hash of everything the machine code
+depends on: the source, the compiler, the flags and the host CPU that
+`-march=native` resolves against. A library built on another machine
+(or from another source) therefore has another name and is never
+loaded; the first load on a new host builds its own. No pip/apt
+dependencies: plain cc + libm.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
+import platform
 import subprocess
 import threading
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_HERE, "native", "akort.c")
-_LIB = os.path.join(_HERE, "native", "_akort.so")
+_OUT_DIR = os.path.join(_HERE, "native")
 
 _lock = threading.Lock()
 _lib = None
 
 
-def _compile() -> None:
-    cc = os.environ.get("CC", "cc")
+def _cc() -> str:
+    return os.environ.get("CC", "cc")
+
+
+def _flags() -> list:
+    # -O3 -march=native: same output bytes as -O2, faster native coder;
+    # AKO_CC_FLAGS overrides, and unsupported flags fall back to -O2
+    return os.environ.get("AKO_CC_FLAGS", "-O3 -march=native").split()
+
+
+def _cpu_id() -> str:
+    """The host CPU's model and feature flags (what -march=native
+    selects code for)."""
+    try:
+        with open("/proc/cpuinfo", encoding="utf-8", errors="replace") as f:
+            lines = f.read().splitlines()
+    except OSError:
+        return platform.processor()
+    picked = {}
+    for line in lines:
+        key, _, val = line.partition(":")
+        key = key.strip()
+        if key in ("model name", "flags", "Features", "CPU part") and key not in picked:
+            picked[key] = val.strip()
+    return repr(sorted(picked.items())) if picked else platform.processor()
+
+
+def build_key() -> str:
+    h = hashlib.sha256()
+    with open(_SRC, "rb") as f:
+        h.update(f.read())
+    for part in (_cc(), " ".join(_flags()), platform.machine(), _cpu_id()):
+        h.update(b"\0" + part.encode())
+    return h.hexdigest()[:16]
+
+
+def library_path() -> str:
+    return os.path.join(_OUT_DIR, f"_akort-{build_key()}.so")
+
+
+def _compile(path: str) -> None:
     # pid-unique temp: concurrent processes (pytest-xdist workers) may
     # race to build; os.replace keeps the install atomic either way
-    tmp = f"{_LIB}.{os.getpid()}.tmp"
-    # -O3 -march=native: measured 2026-08-20 on the bench coefficient
-    # distribution, enc 12.1 -> 10.2 ms and dec 8.4 -> 7.5 ms per 1M
-    # coeffs vs -O2, identical output bytes. The library always builds
-    # on the machine it runs on (first-import compile), so native
-    # codegen is safe; AKO_CC_FLAGS overrides, and unsupported flags
-    # fall back to plain -O2.
-    opt = os.environ.get("AKO_CC_FLAGS", "-O3 -march=native").split()
+    tmp = f"{path}.{os.getpid()}.tmp"
     base = ["-fPIC", "-shared", "-fvisibility=hidden", _SRC, "-lm", "-o", tmp]
     try:
-        subprocess.run([cc, *opt, *base], check=True, capture_output=True)
+        subprocess.run([_cc(), *_flags(), *base], check=True, capture_output=True)
     except subprocess.CalledProcessError:
-        subprocess.run([cc, "-O2", *base], check=True, capture_output=True)
-    os.replace(tmp, _LIB)
+        subprocess.run([_cc(), "-O2", *base], check=True, capture_output=True)
+    os.replace(tmp, path)
+
+
+def ensure_built() -> str:
+    """Path of this host's library, compiled first if absent."""
+    path = library_path()
+    if not os.path.exists(path):
+        _compile(path)
+    return path
 
 
 def load() -> ctypes.CDLL:
@@ -47,12 +93,7 @@ def load() -> ctypes.CDLL:
     with _lock:
         if _lib is not None:
             return _lib
-        if (
-            not os.path.exists(_LIB)
-            or os.path.getmtime(_LIB) < os.path.getmtime(_SRC)
-        ):
-            _compile()
-        lib = ctypes.CDLL(_LIB)
+        lib = ctypes.CDLL(ensure_built())
 
         lib.akort_quantization.restype = ctypes.c_int32
         lib.akort_quantization.argtypes = [

@@ -3,7 +3,7 @@ format's reserved second method "Manbavaran" as a real rANS coder.
 
 Byte-level contract: library/kagari.c:228-366 plus the per-tile block
 framing of library/compression.c:30-73 (4-byte little-endian
-compressed-size head). The TPU pipeline produces/consumes the raw
+compressed-size head). The device pipeline produces/consumes the raw
 int16 coefficient stream; these functions translate it to/from the
 container's compressed blocks.
 

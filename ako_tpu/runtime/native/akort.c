@@ -15,11 +15,12 @@ ako_tpu native runtime: sequential host-side pieces of the codec.
     pattern, buffer-bound failure conditions, the RLE trigger/overflow
     rules, and the uint16 truncation quirk for zigzag(-32768)+1.
 
-The wavelet/color/quantization compute path lives on the TPU; this file
+The wavelet/color/quantization compute path lives on the device; this file
 is only the host bitstream tail (and its curve twin), plus a CPU golden
 path used by tests.
 
-Build: cc -O2 -fPIC -shared akort.c -lm -o _akort.so (see build.py).
+Build: cc -O3 -march=native -fPIC -shared akort.c -lm, into a library
+named for this source, the flags and the host CPU (see build.py).
 */
 
 #include <math.h>
@@ -525,7 +526,7 @@ static void kagari_decode_pair(KD *a, KD *b)
 Walk the Kagari stream exactly like akort_kagari_decode, but instead of
 writing values, record the decoder state at every `block`-th output
 position: (logical bit offset of the next unread code, previous value,
-consecutive-equal count, remaining run length). A TPU program then
+consecutive-equal count, remaining run length). A device program then
 decodes all blocks in parallel from these sync points, bit-exactly
 (ops/kagari_device.py:kagari_decode_device).
 
@@ -656,8 +657,8 @@ API size_t akort_kagari_sync(size_t count, const void *input, size_t input_size,
 /* format.c:244). All arithmetic is int32 with an int16 truncation at  */
 /* every coefficient store; C's `/` is the truncating division both    */
 /* sides use. Used by the host-decode pipeline path and the transport  */
-/* unpack (runtime/hostcodec.py) so decoded pixels never need a        */
-/* device round-trip when the host<->device link is the bottleneck.    */
+/* unpack (runtime/hostcodec.py) so decoded pixels need no device      */
+/* round-trip.                                                         */
 
 enum { W_DD137 = 0, W_CDF53 = 1, W_HAAR = 2, W_NONE = 3 };
 enum { WR_CLAMP = 0, WR_MIRROR = 1, WR_REPEAT = 2, WR_ZERO = 3 };
@@ -1165,8 +1166,8 @@ API void akort_planes_to_u8(const int16_t *planes, int32_t w, int32_t h,
 /* ops/colorspace.py to_planar_yuv (format.c:64-133). Used by          */
 /* runtime/transport.py's encode-side pack (host q0 re-encode of the   */
 /* pixel upload) so the pack runs at native speed instead of a         */
-/* CPU-XLA forward program. NOT a production encode path — the codec's */
-/* encode compute engine is the TPU.                                   */
+/* CPU-XLA forward program. The codec's default encode compute runs   */
+/* on the device.                                                      */
 
 /* Forward 1-D pair: hp from (odd, even-neighborhood) first, then lp
    from (even, hp-neighborhood). Contiguous (H pass). */
@@ -1792,7 +1793,7 @@ Sync scan for the device-side parallel Manbavaran decoder: walk the
 rANS payload exactly like akort_manba_decode, recording the decoder
 state every `block`-th output: (rANS state x, next unread rans byte
 index RELATIVE to the payload start, extras bit index relative to the
-extras region start). A TPU program then decodes all blocks in
+extras region start). A device program then decodes all blocks in
 parallel from these records (ops/manba_device.py), bit-exactly.
 
 Also writes the model (17 freqs) and the region offsets the device

@@ -16,7 +16,7 @@ from ako_tpu.tools.options import OptionsManager, OptionError
 
 
 def build_options() -> OptionsManager:
-    om = OptionsManager("akodec", "Ako TPU decoding tool")
+    om = OptionsManager("akodec", "Ako decoding tool (JAX)")
     om.add_string("-i", "", None, "Input/output", "input .ako filename", "--input")
     om.add_string("-o", "", None, "Input/output", "output PNG filename", "--output")
     om.add_int("-e", 7, 1, 10, "Encoding", "PNG effort 1-10", "--effort")
@@ -39,6 +39,9 @@ def save_png(path: str, image: np.ndarray, effort: int) -> None:
 
 
 def main(argv=None) -> int:
+    from ako_tpu.runtime.device import enable_compile_cache
+
+    enable_compile_cache()
     om = build_options()
     try:
         om.parse_arguments(sys.argv[1:] if argv is None else argv)

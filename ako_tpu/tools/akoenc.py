@@ -29,7 +29,7 @@ def build_options() -> OptionsManager:
     """Flag surface of the reference encoder (tools/akoenc.cpp:337-447),
     short and long spellings; -t (tiles dimension) is an extension the
     reference library supports but its CLI never exposed."""
-    om = OptionsManager("akoenc", "Ako TPU encoding tool")
+    om = OptionsManager("akoenc", "Ako encoding tool (JAX)")
     om.add_string("-i", "", None, "Input/output", "input image filename", "--input")
     om.add_string("-o", "", None, "Input/output", "output .ako filename", "--output")
     om.add_int("-q", 16, 0, 65535, "Encoding", "quantization factor", "--quantization")
@@ -68,6 +68,9 @@ def load_image(path: str) -> np.ndarray:
 
 
 def main(argv=None) -> int:
+    from ako_tpu.runtime.device import enable_compile_cache
+
+    enable_compile_cache()
     om = build_options()
     try:
         om.parse_arguments(sys.argv[1:] if argv is None else argv)

@@ -101,8 +101,8 @@ def _rate_pack_fn(n_values: int, capacity: int, budget: int):
 def _probe_sizes_fn(tile_w, tile_h, channels, n_levels):
     """Jitted fused probe: (lp, quads, qs, gs) -> (T,) int32 exact
     compressed payload sizes. Serializes and tokenizes on device — the
-    coefficient streams never cross the host link (the round-2 probe
-    loop fetched ~10 MB of int16 per probe just to measure sizes)."""
+    coefficient streams never leave the device (fetching them cost
+    ~10 MB of int16 per probe just to measure sizes)."""
     from ako_tpu.ops.kagari_device import kagari_size_device
 
     schedule = geometry.lift_schedule(tile_w, tile_h)
@@ -173,8 +173,10 @@ class _CachedEncoder:
         grid = geometry.tile_grid(self.w, self.h, s.tiles_dimension)
         # the device packer emits Kagari blocks; the real-rANS
         # extension (effective MANBAVARAN) must host-code
+        from ako_tpu.runtime.device import device_entropy_default
+
         device_entropy = (
-            jax.default_backend() != "cpu"
+            device_entropy_default()
             and effective_method(s.compression) != Compression.MANBAVARAN
         )
         blocks: list = [None] * len(grid)

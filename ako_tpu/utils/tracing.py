@@ -2,7 +2,7 @@
 
 The reference exposes per-stage wall-clock through the event callbacks
 (library/ako.h:75-84; tools/benchmark.hpp) — mirrored by
-`core/events.py`. The TPU-native equivalent for *device* visibility is
+`core/events.py`. The equivalent for *device* visibility is
 a jax profiler trace (SURVEY.md §5): set `AKO_TPU_TRACE_DIR=/some/dir`
 and every top-level `ako_tpu.encode` / `ako_tpu.decode` call writes a
 TensorBoard-loadable trace (XLA ops, transfers, host activity) there.

@@ -1,8 +1,7 @@
-"""Sweep AKO_DECODE_BLOCK (outputs per device decode block) on the
-real chip: the decode-entropy stage is now the largest device stage
-(8.6-9.3 ms vs the pack's 9.5 after the r4 AKO_PACK_CHUNK retune), and
-the block size trades lane parallelism against sync-record overhead.
-Each size runs in a subprocess (the constant is baked at import).
+"""Sweep AKO_DECODE_BLOCK (outputs per device decode block) on the GPU:
+the block size trades parallelism against sync-record overhead. Each
+size runs in a subprocess (the constant is baked at import) through
+bench.measure_device_compute (block_until_ready timings).
 
 Usage: python devbench/dec_block_sweep.py [sizes...]
 """
@@ -21,7 +20,9 @@ def measure_one() -> dict:
 
     from bench import TILES, measure_device_compute, synth_images
     import ako_tpu
+    from ako_tpu.runtime.device import enable_compile_cache
 
+    enable_compile_cache()
     rng = np.random.default_rng(42)
     img = synth_images(rng, 1)[0]
     settings = ako_tpu.Settings(quantization=16, tiles_dimension=TILES)

@@ -3,6 +3,7 @@ unlift program — each forced separately on resident inputs."""
 import os, sys, time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import numpy as np
+import jax
 import jax.numpy as jnp
 from bench import synth_images, TILES
 import ako_tpu
@@ -40,7 +41,7 @@ dfn = _tile_decoder(TILES, TILES, channels, s.wavelet, s.wrap, s.color)
 print(f"combined upload {buf.nbytes/1e6:.2f} MB (pool {pool_words*4/1e6:.2f}), span {span}")
 
 def force(x):
-    np.asarray(jnp.ravel(x)[:1])
+    jax.block_until_ready(x)
 
 for r in range(3):
     t0 = time.perf_counter()

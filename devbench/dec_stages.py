@@ -1,10 +1,13 @@
-"""Decode stage profile on TPU: sync scan, upload, device compute, pixel fetch."""
+"""Decode stage profile on the GPU: sync scan, upload, device compute,
+pixel fetch (device waits end in block_until_ready)."""
 import os, sys, time
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".jax_cache"))
 import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from bench import synth_images, TILES
 import ako_tpu
+from ako_tpu.runtime.device import enable_compile_cache
+
+enable_compile_cache()
 from ako_tpu.core import container, geometry
 from ako_tpu.decode import dispatch_tiles_device_entropy, pixels_ready, place_pixels
 import concurrent.futures as cf

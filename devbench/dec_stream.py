@@ -1,10 +1,12 @@
 """Decode-stream-only timing, many runs, for pool-vs-bucket A/B."""
 import os, sys, time
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".jax_cache"))
 import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from bench import synth_images, TILES, STREAM_N
 import ako_tpu
+from ako_tpu.runtime.device import enable_compile_cache
+
+enable_compile_cache()
 from ako_tpu.runtime.executor import PipelineDecoder, PipelineEncoder
 
 rng = np.random.default_rng(42)

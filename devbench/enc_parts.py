@@ -1,4 +1,5 @@
-"""Encode leg timing on TPU: staging, upload, device compute, byte fetch."""
+"""Encode leg timing on the GPU: staging, upload, device compute, byte
+fetch."""
 import os, sys, time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import numpy as np
@@ -20,7 +21,7 @@ for r in range(3):
     grid, channels, disp = dispatch_tiles_fused(img, s)
     t1 = time.perf_counter()
     for rec in disp:
-        rec[3].result()  # totals future: upload + compute + totals RPC
+        rec[3].result()  # totals future: upload + compute + totals fetch
     t2 = time.perf_counter()
     out = collect_tiles_blocks(s, channels, grid, disp)
     t3 = time.perf_counter()

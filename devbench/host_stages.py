@@ -1,10 +1,8 @@
-"""Per-stage timing artifact for the HOST-native codec path (the
-bench-winning zero-link config): native ms/tile per stage (best-of-N
-of devbench/time_tile.c on a real bench tile) plus the 4-worker
-pipeline ms/image, written to devbench/HOST_STAGES_r05.json.
-
-The VM's clock drifts ~15-20% between windows, so only within-run
-comparisons are meaningful; the artifact records all raw samples.
+"""Per-stage timing of the HOST-native codec path (AKO_TPU_ENCODE=host,
+AKO_TPU_DECODE=host; no device involved): native ms/tile per stage
+(best-of-N of devbench/time_tile.c on a real bench tile) plus the
+4-worker pipeline ms/image, written to chiprun_out/host_stages.json
+with all raw samples (compare only within one run).
 
 Usage: python devbench/host_stages.py
 """
@@ -119,7 +117,8 @@ def main():
         "native_ms_per_tile": native_stages(),
         "pipeline_4workers": pipeline(),
     }
-    path = os.path.join(HERE, "HOST_STAGES_r05.json")
+    path = os.path.join(ROOT, "chiprun_out", "host_stages.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
     with open(path, "w") as f:
         json.dump(out, f, indent=1)
     print(json.dumps(out["pipeline_4workers"], indent=1))

@@ -1,16 +1,18 @@
-"""Stage profile of the roundtrip+hostdec pipeline: where do the
-~180 ms/image go when the link runs ~40 MB/s? Times each stage of one
-image's encode dispatch/collect plus the host decode, and the
-steady-state stream, to locate the serialization point (upload,
-device compute wait, byte fetch RPCs, framing, host decode)."""
+"""Stage profile of the roundtrip+hostdec pipeline (device encode,
+host-native decode): times each stage of one image's encode
+dispatch/collect plus the host decode, and the steady-state stream, to
+locate the serialization point (upload, device compute wait, byte
+fetch, framing, host decode)."""
 import os, sys, time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", ".jax_cache")
 os.environ["AKO_TPU_DECODE"] = "host"
 
 import numpy as np
 from bench import synth_images
 import ako_tpu
+from ako_tpu.runtime.device import enable_compile_cache
+
+enable_compile_cache()
 from ako_tpu.encode import dispatch_tiles_fused, collect_tiles_blocks, checked_settings
 from ako_tpu.core import container
 from ako_tpu.runtime.executor import roundtrip_iter

@@ -1,10 +1,10 @@
 """Isolated device-decode timing: Kagari vs Manbavaran block-parallel
 decoders on the same 80-tile q0 pixel-pack workload (the transport
-uplink shape). Separates the entropy-decode program cost from
-pack/upload, which devbench/enctr_codec_ab.py conflates."""
+upload shape). Separates the entropy-decode program cost from
+pack/upload. Each call ends in block_until_ready."""
 import os, sys, time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", ".jax_cache")
+import jax
 import numpy as np
 from bench import synth_images
 from ako_tpu.core import geometry
@@ -17,6 +17,10 @@ from ako_tpu.runtime.hostcodec import tile_encode_stream
 from ako_tpu.runtime.kagari import kagari_encode, kagari_sync, manba_encode, manba_sync
 from ako_tpu.runtime.transfer import device_put_parallel
 from ako_tpu.runtime.transport import _WAVELET, _WRAP, _COLOR
+from ako_tpu.runtime.device import enable_compile_cache, require_gpu
+
+enable_compile_cache()
+require_gpu()
 
 img = synth_images(np.random.default_rng(42), 1)[0]
 tiles = np.stack([img[y:y+128, x:x+128, :3]
@@ -40,14 +44,14 @@ efnk = _entropy_decode_fn(tds//2, DECODE_BLOCK, pwk, min(spank, pwk), Tk, Bk)
 bufm, pwm, Tm, Bm, rs, es = _pack_manba_upload(m_items)
 efnm = _entropy_decode_fn_manba(tds//2, DECODE_BLOCK, min(rs,pwm), min(es,pwm), pwm, Tm, Bm)
 
-dk = device_put_parallel(bufk); np.asarray(dk[:1])
-dm = device_put_parallel(bufm); np.asarray(dm[:1])
-np.asarray(efnk(dk)[:1, :1]); np.asarray(efnm(dm)[:1, :1])  # warm
+dk = jax.block_until_ready(device_put_parallel(bufk))
+dm = jax.block_until_ready(device_put_parallel(bufm))
+jax.block_until_ready((efnk(dk), efnm(dm)))  # warm
 
 def med(fn, d):
     ts = []
     for _ in range(5):
-        t0 = time.perf_counter(); np.asarray(fn(d)[:1, :1]); ts.append(time.perf_counter()-t0)
+        t0 = time.perf_counter(); jax.block_until_ready(fn(d)); ts.append(time.perf_counter()-t0)
     return sorted(ts)[2]
 
 # interleave

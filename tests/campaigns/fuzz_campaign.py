@@ -7,7 +7,6 @@ os.environ["JAX_PLATFORMS"] = "cpu"
 import jax; jax.config.update("jax_platforms", "cpu")
 import numpy as np
 import ako_tpu
-from tests import oracle
 from tests.test_differential import _random_case
 from tests.test_fuzz import assert_agree
 

@@ -30,7 +30,6 @@ os.environ["JAX_PLATFORMS"] = "cpu"
 import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
-import numpy as np  # noqa: E402
 from PIL import Image  # noqa: E402
 
 import ako_tpu  # noqa: E402

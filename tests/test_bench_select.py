@@ -167,3 +167,10 @@ def test_select_config_single_candidate_warms_only(monkeypatch):
         [("seq+raw", spy, _env())], [], None
     )
     assert name == "seq+raw" and len(calls) == 1 and medians == {}
+
+
+def test_main_refuses_cpu(capsys):
+    # a run without a GPU fails before measuring anything
+    with pytest.raises(RuntimeError, match="no GPU"):
+        bench.main()
+    assert capsys.readouterr().out == ""

@@ -214,9 +214,8 @@ def test_no_lift_border_tiles():
     stale bytes) and fails on this image, while its own decoder reads
     the lowpass contiguously. Our contract: deterministic correct
     encode, bit-identical pixels from BOTH decoders, and a lossless
-    q=0 round-trip through the same tiles. Found by the round-3 TPU
-    e2e matrix (tpu_tests/test_e2e_tpu.py runs the same case on
-    hardware)."""
+    q=0 round-trip through the same tiles. Found by the on-device e2e
+    matrix (chip_smoke.py runs the same case on the GPU)."""
     rng = np.random.default_rng(1234)
     y, x = np.mgrid[0:50, 0:65].astype(np.float32)
     base = 120 + 60 * np.sin(x / 19.0) + 50 * np.cos(y / 13.0)

@@ -40,6 +40,23 @@ def test_decode_matches_golden(name):
     np.testing.assert_array_equal(out, golden)
 
 
+@pytest.mark.parametrize("name", list(SETTINGS))
+def test_encode_matches_golden_device_entropy(image, name):
+    # the GPU's default path: device Kagari pack, forced on the CPU
+    blob = ako_tpu.encode(image, SETTINGS[name], device_entropy=True)
+    golden = open(os.path.join(GOLDEN, f"{name}.ako"), "rb").read()
+    assert blob == golden
+
+
+@pytest.mark.parametrize("name", list(SETTINGS))
+def test_decode_matches_golden_device_entropy(name):
+    # the GPU's default path: sync scan + device gamma decode
+    blob = open(os.path.join(GOLDEN, f"{name}.ako"), "rb").read()
+    out, _, _ = ako_tpu.decode(blob, device_entropy=True)
+    golden = np.load(os.path.join(GOLDEN, f"{name}_decoded.npy"))
+    np.testing.assert_array_equal(out, golden)
+
+
 def test_lossless_golden_roundtrips(image):
     blob = open(os.path.join(GOLDEN, "lossless.ako"), "rb").read()
     out, _, _ = ako_tpu.decode(blob)

@@ -13,6 +13,9 @@ Three layers of exactness evidence:
 
 from __future__ import annotations
 
+import contextlib
+import os
+
 import numpy as np
 import pytest
 
@@ -29,6 +32,39 @@ from tests import oracle
 @pytest.fixture
 def rng():
     return np.random.default_rng(0xC0DE)
+
+
+@contextlib.contextmanager
+def _device_paths():
+    """Lift the host-mode switches for the duration of a reference
+    computation."""
+    saved = {k: os.environ.pop(k) for k in ("AKO_TPU_ENCODE", "AKO_TPU_DECODE")
+             if k in os.environ}
+    try:
+        yield
+    finally:
+        os.environ.update(saved)
+
+
+def _ref_encode(img, s) -> bytes:
+    """The reference library's blob where its sources are present,
+    else the per-tile device-lift + host-entropy path (pinned to the
+    reference by the golden files)."""
+    from ako_tpu.encode import checked_settings
+
+    if oracle.available():
+        return oracle.ref_encode(img, checked_settings(s))
+    with _device_paths():
+        return ako_tpu.encode(img, s, device_entropy=False)
+
+
+def _ref_decode(blob: bytes) -> np.ndarray:
+    """Reference-library pixels where available, else the per-tile
+    host-entropy + device-unlift decode."""
+    if oracle.available():
+        return oracle.ref_decode(blob)[0]
+    with _device_paths():
+        return ako_tpu.decode(blob, device_entropy=False)[0]
 
 
 def _roundtrip_case(rng, tw, th, wavelet, wrap, q, ch, color):
@@ -120,32 +156,27 @@ class TestHostDecodeEndToEnd:
         monkeypatch.setenv("AKO_TPU_DECODE", "host")
         s = Settings(**kw)
         img = _photo(rng, 90, 70)
-        from ako_tpu.encode import checked_settings
-
-        blob = oracle.ref_encode(img, checked_settings(s))
+        blob = _ref_encode(img, s)
         got, _s, _ch = ako_tpu.decode(blob)
-        ref = oracle.ref_decode(blob)[0]
-        assert np.array_equal(got, ref)
+        assert np.array_equal(got, _ref_decode(blob))
 
     def test_truncated_blob_raises(self, rng, monkeypatch):
         monkeypatch.setenv("AKO_TPU_DECODE", "host")
         from ako_tpu.core.settings import AkoError
-        from ako_tpu.encode import checked_settings
 
         s = Settings(quantization=16, tiles_dimension=64)
         img = _photo(rng, 90, 70)
-        blob = oracle.ref_encode(img, checked_settings(s))
+        blob = _ref_encode(img, s)
         with pytest.raises(AkoError):
             ako_tpu.decode(blob[: len(blob) // 2])
 
     def test_per_tile_events_fire(self, rng, monkeypatch):
         monkeypatch.setenv("AKO_TPU_DECODE", "host")
         from ako_tpu.core.events import Event
-        from ako_tpu.encode import checked_settings
 
         s = Settings(quantization=16, tiles_dimension=64)
         img = _photo(rng, 90, 70)
-        blob = oracle.ref_encode(img, checked_settings(s))
+        blob = _ref_encode(img, s)
         seen = []
         ako_tpu.decode(blob, events=lambda t, n, e, u: seen.append((t, e)))
         tiles = {t for t, _ in seen}
@@ -197,13 +228,13 @@ class TestHostDecodePipeline:
         def boom(*a, **k):  # device dispatch must be unreachable
             raise AssertionError("device path entered under host decode")
 
-        monkeypatch.setattr(dec_mod, "dispatch_tiles_device_entropy", boom)
-        monkeypatch.setattr(dec_mod, "_run_tile_decoder", boom)
         s = Settings(quantization=16, tiles_dimension=64)
         img = _photo(rng, 96, 64)
         blobs = PipelineEncoder(s).encode_batch([img])
+        ref = _ref_decode(blobs[0])
+        monkeypatch.setattr(dec_mod, "dispatch_tiles_device_entropy", boom)
+        monkeypatch.setattr(dec_mod, "_run_tile_decoder", boom)
         (pix,) = list(PipelineDecoder().decode_iter(blobs))
-        ref = oracle.ref_decode(blobs[0])[0]
         assert np.array_equal(pix, ref)
 
 
@@ -229,11 +260,8 @@ class TestHostEncodeEndToEnd:
         monkeypatch.setenv("AKO_TPU_ENCODE", "host")
         s = Settings(**kw)
         img = _photo(rng, 90, 70)
-        from ako_tpu.encode import checked_settings
-
         blob = ako_tpu.encode(img, s)
-        ref = oracle.ref_encode(img, checked_settings(s))
-        assert blob == ref
+        assert blob == _ref_encode(img, s)
 
     def test_per_tile_events_fire(self, rng, monkeypatch):
         monkeypatch.setenv("AKO_TPU_ENCODE", "host")
@@ -261,7 +289,6 @@ class TestHostEncodeEndToEnd:
 class TestHostEncodePipeline:
     def test_pipeline_encoder_host(self, rng, monkeypatch):
         monkeypatch.setenv("AKO_TPU_ENCODE", "host")
-        from ako_tpu.encode import checked_settings
         from ako_tpu.runtime.executor import PipelineEncoder
 
         # border tiles 8x22 (NOT 1-2 px wide: the reference encoder
@@ -271,42 +298,39 @@ class TestHostEncodePipeline:
         imgs = [_photo(rng, 150, 136), _photo(rng, 96, 64), _photo(rng, 64, 64)]
         blobs = PipelineEncoder(s).encode_batch(imgs)
         for img, blob in zip(imgs, blobs):
-            assert blob == oracle.ref_encode(img, checked_settings(s))
+            assert blob == _ref_encode(img, s)
 
     def test_roundtrip_iter_full_host(self, rng, monkeypatch):
         monkeypatch.setenv("AKO_TPU_ENCODE", "host")
         monkeypatch.setenv("AKO_TPU_DECODE", "host")
-        from ako_tpu.encode import checked_settings
         from ako_tpu.runtime.executor import roundtrip_iter
 
         s = Settings(quantization=16, tiles_dimension=64)
         imgs = [_photo(rng, 150, 136), _photo(rng, 96, 64)]
         pairs = list(roundtrip_iter(imgs, s))
         for img, (blob, pix) in zip(imgs, pairs):
-            assert blob == oracle.ref_encode(img, checked_settings(s))
-            assert np.array_equal(pix, oracle.ref_decode(blob)[0])
+            assert blob == _ref_encode(img, s)
+            assert np.array_equal(pix, _ref_decode(blob))
 
     def test_host_mode_never_dispatches_device(self, rng, monkeypatch):
         monkeypatch.setenv("AKO_TPU_ENCODE", "host")
         import importlib
 
         enc_mod = importlib.import_module("ako_tpu.encode")
-        from ako_tpu.encode import checked_settings
         from ako_tpu.runtime.executor import PipelineEncoder
 
         def boom(*a, **k):  # device dispatch must be unreachable
             raise AssertionError("device path entered under host encode")
 
+        s = Settings(quantization=16, tiles_dimension=64)
+        img = _photo(rng, 96, 64)
+        ref = _ref_encode(img, s)
         monkeypatch.setattr(enc_mod, "dispatch_tiles_fused", boom)
         monkeypatch.setattr(enc_mod, "encode_tiles_device", boom)
         monkeypatch.setattr(enc_mod, "_tile_encoder", boom)
-        s = Settings(quantization=16, tiles_dimension=64)
-        img = _photo(rng, 96, 64)
-        assert ako_tpu.encode(img, s) == oracle.ref_encode(
-            img, checked_settings(s)
-        )
+        assert ako_tpu.encode(img, s) == ref
         (blob,) = PipelineEncoder(s).encode_batch([img])
-        assert blob == oracle.ref_encode(img, checked_settings(s))
+        assert blob == ref
 
 
 class TestNativeForwardParity:
@@ -386,7 +410,6 @@ class TestHostSpanPipeline:
     def test_matrix_vs_oracle(self, rng, monkeypatch, kw):
         monkeypatch.setenv("AKO_TPU_ENCODE", "host")
         monkeypatch.setenv("AKO_TPU_DECODE", "host")
-        from ako_tpu.encode import checked_settings
         from ako_tpu.runtime.executor import PipelineDecoder, PipelineEncoder
 
         s = Settings(**kw)
@@ -397,22 +420,21 @@ class TestHostSpanPipeline:
         blobs = PipelineEncoder(s).encode_batch(imgs)
         pix = list(PipelineDecoder().decode_iter(blobs))
         for img, blob, got in zip(imgs, blobs, pix):
-            assert blob == oracle.ref_encode(img, checked_settings(s))
-            assert np.array_equal(got, oracle.ref_decode(blob)[0])
+            assert blob == _ref_encode(img, s)
+            assert np.array_equal(got, _ref_decode(blob))
 
     def test_compression_none_falls_back(self, rng, monkeypatch):
         monkeypatch.setenv("AKO_TPU_ENCODE", "host")
         monkeypatch.setenv("AKO_TPU_DECODE", "host")
-        from ako_tpu.encode import checked_settings
         from ako_tpu.runtime.executor import PipelineDecoder, PipelineEncoder
 
         s = Settings(quantization=16, compression=Compression.NONE,
                      tiles_dimension=64)
         img = _photo(rng, 96, 70)
         (blob,) = PipelineEncoder(s).encode_batch([img])
-        assert blob == oracle.ref_encode(img, checked_settings(s))
         (got,) = list(PipelineDecoder().decode_iter([blob]))
-        assert np.array_equal(got, oracle.ref_decode(blob)[0])
+        assert blob == _ref_encode(img, s)
+        assert np.array_equal(got, _ref_decode(blob))
 
     @pytest.mark.parametrize("mutate", ["flip", "truncate_payload", "zero_run"])
     def test_corrupt_blob_raises(self, rng, monkeypatch, mutate):

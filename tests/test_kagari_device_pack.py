@@ -1,5 +1,5 @@
 """Device Kagari packer internals: the dense-inverse ranks, the
-MXU-chunked cumsums, and the direct word-placement formulation — each
+matmul-chunked cumsums, and the direct word-placement formulation — each
 must be exactly equal to its straightforward reference formulation.
 
 (Split from test_kagari_device.py so pytest-xdist's per-file

@@ -35,6 +35,21 @@ def _photo(rng, h, w, ch=4):
     return np.clip(img, 0, 255).astype(np.uint8)
 
 
+def _assert_exact(img, s, blob, pix=None):
+    """The device-entropy outputs equal the per-tile host-entropy path
+    (device lift + native coder), and the reference library where its
+    sources are present."""
+    from ako_tpu.encode import checked_settings
+
+    assert blob == ako_tpu.encode(img, s, device_entropy=False)
+    if pix is not None:
+        assert np.array_equal(pix, ako_tpu.decode(blob, device_entropy=False)[0])
+    if oracle.available():
+        assert blob == oracle.ref_encode(img, checked_settings(s))
+        if pix is not None:
+            assert np.array_equal(pix, oracle.ref_decode(blob)[0])
+
+
 def test_counter_api():
     metrics.reset()
     assert metrics.counters() == {}
@@ -67,10 +82,7 @@ def test_no_fallbacks_on_clean_workload(rng):
     assert c[metrics.ENC_DEVICE] == 4
     assert c[metrics.DEC_HOST_FALLBACK] == 0
     assert c[metrics.DEC_DEVICE] == 4
-    from ako_tpu.encode import checked_settings
-
-    assert blob == oracle.ref_encode(img, checked_settings(s))
-    assert np.array_equal(pix, oracle.ref_decode(blob)[0])
+    _assert_exact(img, s, blob, pix)
 
 
 def test_encode_budget_fallback_counted(rng):
@@ -85,9 +97,7 @@ def test_encode_budget_fallback_counted(rng):
     if c[metrics.ENC_HOST_FALLBACK] == 0:
         pytest.skip("noise tile unexpectedly fit the device budget")
     assert c[metrics.ENC_HOST_FALLBACK] + c[metrics.ENC_DEVICE] == 2
-    from ako_tpu.encode import checked_settings
-
-    assert blob == oracle.ref_encode(img, checked_settings(s))
+    _assert_exact(img, s, blob)
 
 
 def test_decode_quirk_fallback_counted(rng, monkeypatch):
@@ -116,5 +126,4 @@ def test_decode_quirk_fallback_counted(rng, monkeypatch):
     c = metrics.fallback_summary()
     assert c[metrics.DEC_HOST_FALLBACK] == 2
     assert c[metrics.DEC_DEVICE] == 0
-    ref = oracle.ref_decode(blob)
-    assert ref is not None and np.array_equal(pix, ref[0])
+    _assert_exact(img, s, blob, pix)

@@ -8,7 +8,7 @@ devices) running HostShardedPipeline end-to-end and asserts:
 - every shard blob is byte-identical to a single-process encode.
 
 The reference has no distributed counterpart (SURVEY.md §2.4); this is
-the DCN tier of the TPU-native design, where images shard over hosts
+the multi-host tier of the multi-device design, where images shard over hosts
 and no codec bytes cross processes.
 """
 

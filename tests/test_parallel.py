@@ -194,7 +194,7 @@ class TestTileParallel:
 @needs_8dev
 class TestBitstreamGather:
     def test_sharded_encode_blob_identical(self, rng):
-        """Full multi-chip encode (tile shards + ICI bitstream gather)
+        """Full multi-device encode (tile shards + bitstream all-gather)
         must produce the byte-identical container."""
         import ako_tpu
         from ako_tpu.parallel.tiles import encode_image_sharded

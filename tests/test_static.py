@@ -26,8 +26,15 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _sources():
-    roots = [os.path.join(REPO, "ako_tpu"), os.path.join(REPO, "devbench")]
-    files = [os.path.join(REPO, "bench.py"), os.path.join(REPO, "__graft_entry__.py")]
+    roots = [
+        os.path.join(REPO, "ako_tpu"),
+        os.path.join(REPO, "devbench"),
+        os.path.join(REPO, "tests", "campaigns"),
+    ]
+    files = [
+        os.path.join(REPO, name)
+        for name in ("bench.py", "chip_smoke.py", "__graft_entry__.py")
+    ]
     for root in roots:
         for dirpath, _dirs, names in os.walk(root):
             for n in sorted(names):

@@ -174,7 +174,7 @@ class TestDeveloperDump:
 class TestProfilerTrace:
     def test_trace_dir_populated(self, rng, tmp_path, monkeypatch):
         """AKO_TPU_TRACE_DIR wraps encode/decode in a jax profiler
-        trace (the TPU-native analog of the reference's -b per-stage
+        trace (the device analog of the reference's -b per-stage
         stopwatches, SURVEY.md §5)."""
         trace_dir = str(tmp_path / "trace")
         monkeypatch.setenv("AKO_TPU_TRACE_DIR", trace_dir)

@@ -152,7 +152,7 @@ class TestTransportEncode:
     def test_incompressible_raw_fallback(self, rng, monkeypatch):
         # a q0-incompressible tile (coder -> None) must signal the raw
         # upload; u8 pixels can barely reach the tds cap, so simulate
-        # the coder failure at its source module — for both uplink
+        # the coder failure at its source module — for both upload
         # codecs (Kagari default, rANS opt-in)
         from ako_tpu.runtime import kagari as kagari_mod
 
@@ -165,7 +165,7 @@ class TestTransportEncode:
         assert transport.upload_tiles_packed(img[None]) is None
 
     def test_oversized_code_raw_fallback(self, rng, monkeypatch):
-        # Kagari-codec uplink: streams the device decoder cannot take
+        # Kagari-codec upload: streams the device decoder cannot take
         # (max code bits > 31, the zigzag(-32768) quirk) must signal
         # the raw upload
         from ako_tpu.runtime import kagari as kagari_mod
@@ -182,7 +182,7 @@ class TestTransportEncode:
         assert transport.upload_tiles_packed(img[None]) is None
 
     def test_rans_codec_pin(self, rng, monkeypatch):
-        # the opt-in rANS uplink codec stays bit-neutral
+        # the opt-in rANS upload codec stays bit-neutral
         monkeypatch.setenv("AKO_TPU_TRANSPORT_ENC_CODEC", "rans")
         img = _photo(rng, 96, 64, 3)
         self._blob_pair(img, Settings(quantization=16, tiles_dimension=64), monkeypatch)
